@@ -24,7 +24,7 @@ def register_command(name: str):
     return deco
 
 
-from anemoi_models_tpu.commands import bench, evaluate, hello, info, plan, predict, train, train_demo  # noqa: E402,F401
+from anemoi_models_tpu.commands import bench, evaluate, hello, info, predict, train, train_demo  # noqa: E402,F401
 
 
 def main(argv=None) -> int:
@@ -34,4 +34,7 @@ def main(argv=None) -> int:
         p = sub.add_parser(name, help=cmd.__doc__)
         cmd.add_arguments(p)
     args = parser.parse_args(argv)
+    from anemoi_models_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     return COMMANDS[args.command].run(args) or 0

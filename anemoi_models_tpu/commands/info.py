@@ -15,23 +15,20 @@ class Info:
     def run(self, args) -> int:
         import os
 
-        import flax
         import jax
 
         import anemoi_models_tpu
         from anemoi_models_tpu import native
 
         print(f"anemoi-models-tpu {anemoi_models_tpu.__version__}")
-        print(f"jax {jax.__version__}, flax {flax.__version__}")
+        print(f"jax {jax.__version__}")
         print(f"backend: {jax.default_backend()}")
         for d in jax.devices():
             print(f"  {d}")
         print(f"native graph kernels: {'available' if native.available() else 'numpy fallbacks'}")
         knobs = (
-            "ANEMOI_INFERENCE_NUM_CHUNKS", "ANEMOI_PLAN_PASSES",
-            "ANEMOI_PLAN_SLAB_WIDTH", "ANEMOI_PLAN_BLOCK_NODES",
-            "ANEMOI_PLAN_SELECT", "ANEMOI_FLASH_BLOCK",
-            "ANEMOI_ADJOINT_CHUNK_BYTES",
+            "ANEMOI_INFERENCE_NUM_CHUNKS", "ANEMOI_ADJOINT_CHUNK_BYTES",
+            "JAX_COMPILATION_CACHE_DIR",
         )
         active = {k: os.environ[k] for k in knobs if k in os.environ}
         if active:

@@ -60,8 +60,8 @@ def enc_proc_dec(
 
     ``flavor`` selects the processor family (mappers follow: GNN mappers for
     the GNN flavor, GraphTransformer mappers otherwise, as in AIFS).
-    ``graph_impl`` None keeps each layer's measured default ("dense"
-    tables; pass "pallas" for the fused kernel path).
+    ``graph_impl`` None keeps each layer's default ("dense" degree-bucketed
+    gathers); "segment" selects the plain COO reference path.
     """
     assert flavor in FLAVORS, f"flavor must be one of {FLAVORS}, got {flavor!r}"
     assert not isinstance(forcing, str) and not isinstance(diagnostic, str), (

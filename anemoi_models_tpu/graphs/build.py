@@ -1,7 +1,7 @@
 """Host-side graph builders: grids, icosahedral meshes, and edge builders.
 
 The reference delegates graph construction to the external ``anemoi-graphs``
-package; this module makes the TPU framework standalone. All construction is
+package; this module makes the framework standalone. All construction is
 ``numpy``/``scipy`` at model-build time — graphs are static.
 
 Conventions (matching what the reference's models expect of anemoi-graphs):

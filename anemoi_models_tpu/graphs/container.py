@@ -1,6 +1,6 @@
 """Static heterogeneous graph container.
 
-TPU-native stand-in for the torch_geometric ``HeteroData`` objects the
+Stand-in for the torch_geometric ``HeteroData`` objects the
 reference consumes (e.g. ``models/encoder_processor_decoder.py:74,83,95``).
 Everything here is host-side ``numpy`` — the graph is *static* model-build-time
 data; device arrays are only materialized when layers bake edge indices/attrs
@@ -8,7 +8,7 @@ into their parameters/constants.
 
 Node sets are named ("data", "hidden", ...); edge sets are keyed by
 ``(src_name, "to", dst_name)``. Edge indices are stored pre-sorted by
-destination node (CSR order) so segment reductions on TPU can assume sorted
+destination node (CSR order) so segment reductions can assume sorted
 segments — the analogue of the reference's 1-hop edge sorting
 (``distributed/khop_edges.py:50-85``) done once at build time.
 """

@@ -149,7 +149,7 @@ class AnemoiModelInterface:
         step: Optional[int] = None,
         include_graph: bool = True,
     ) -> str:
-        """Persist params + processor state + metadata (orbax).
+        """Persist params + processor state + metadata (numpy + JSON).
 
         With ``include_graph`` (default) the checkpoint is fully
         self-contained: the graph arrays, per-variable statistics, and the

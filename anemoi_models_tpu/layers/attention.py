@@ -1,9 +1,10 @@
 """Multi-head self-attention with sliding window.
 
 Counterpart of reference ``layers/attention.py:34-112`` (fused QKV linear,
-flash-attn windowed kernel or SDPA fallback). Here the kernel switch is
-``impl``: "reference" (jnp, CPU-testable) / "pallas" (TPU flash attention) /
-"auto". Head-vs-sequence parallelism is not an explicit all-to-all as in the
+flash-attn windowed kernel or SDPA fallback). Here the switch is ``impl``:
+"chunked" (blockwise, O(N·w) memory) / "reference" (plain jnp) / "halo"
+(sequence-parallel under a model axis) / "auto" (see
+``ops/attention.py``). Head-vs-sequence parallelism is not an explicit all-to-all as in the
 reference (``attention.py:87-107``) — tensors carry named-sharding
 constraints and GSPMD inserts the collectives (see ``parallel/``).
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-import flax.linen as nn
+from anemoi_models_tpu import nn
 import jax.numpy as jnp
 
 from anemoi_models_tpu.ops.attention import dot_product_attention

@@ -15,7 +15,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-import flax.linen as nn
+from anemoi_models_tpu import nn
 import jax.numpy as jnp
 
 from anemoi_models_tpu.layers.attention import MultiHeadSelfAttention
@@ -41,15 +41,24 @@ class HaloTables:
     """Static marker routing a GraphTransformer conv to the halo-partitioned
     execution (``parallel/halo_conv.halo_graph_transformer_conv``) — the
     multi-chip default for self-graph processors under a >1 model axis.
-    With ``plans`` (a ``graphs.kernel_plan.ShardedKernelPlan``), each shard
-    runs the fused Pallas kernel on its local subgraph instead of the COO
-    segment path (``graph_impl="pallas"`` under a mesh). ``gnn_tables``
-    (``HaloGNNTables``) give the GNN conv its scatter-free gather layouts."""
+    ``gnn_tables`` (``HaloGNNTables``) give the GNN conv its scatter-free
+    gather layouts."""
 
-    def __init__(self, part, plans=None, gnn_tables=None):
+    def __init__(self, part, gnn_tables=None):
         self.part = part
-        self.plans = plans
         self.gnn_tables = gnn_tables
+
+
+def _affine_from_closure(edge_transform, a_dim: int, num_heads: int, head_dim: int):
+    """(A+1, H, D) weights of the affine edge projection ``edge_transform:
+    (..., A) -> (..., H, D)``, bias as the last row: probing it with a basis
+    recovers ``W`` and ``b`` as parameter-only expressions XLA folds at
+    compile time (the halo conv augments attributes with a ones column)."""
+    eye = jnp.concatenate([jnp.eye(a_dim), jnp.zeros((1, a_dim))], axis=0)  # (A+1, A)
+    probed = edge_transform(eye)  # (A+1, H, D): rows = W + b, last = b
+    b = probed[-1]
+    w = probed[:-1] - b[None]
+    return jnp.concatenate([w, b[None]], axis=0)
 
 
 def num_chunks_inference() -> int:
@@ -274,7 +283,7 @@ class _GraphTransformerBase(nn.Module):
 
         return transform
 
-    def _conv_chunked(self, query, key, value, edges, edge_index, num_dst, num_chunks, tables=None, edge_transform=None, src_transform=None, commute=None, commute_kv=None):
+    def _conv_chunked(self, query, key, value, edges, edge_index, num_dst, num_chunks, tables=None, edge_transform=None, src_transform=None, commute=None):
         """Edge-chunked per-edge attention. Chunking splits the (CSR-sorted)
         edge set, so per-destination softmax normalization must span chunks:
         compute unnormalized exp-weighted sums + normalizers per chunk and
@@ -284,28 +293,17 @@ class _GraphTransformerBase(nn.Module):
         live memory is already bounded by the padded degree).
         """
         if isinstance(tables, HaloTables):
-            assert src_transform is None and commute is None and commute_kv is None, (
+            assert src_transform is None and commute is None, (
                 "narrow-source dataflows are a bucketed-tables feature"
             )
-            from anemoi_models_tpu.ops.slot_attention import _affine_from_closure
             from anemoi_models_tpu.parallel.api import get_mesh
             from anemoi_models_tpu.parallel.halo_conv import (
                 halo_graph_transformer_conv,
-                halo_planned_edge_attention,
                 shard_edge_values,
             )
 
             mesh = get_mesh()
             a0 = edges[0]  # raw edge attrs, batch-invariant
-            if tables.plans is not None:
-                from anemoi_models_tpu.ops.slot_attention import halo_planned_edge_inputs
-
-                sp = tables.plans
-                a_slots, e_out, w_aug = halo_planned_edge_inputs(a0, sp, edge_transform)
-                return halo_planned_edge_attention(
-                    mesh, tables.part, sp, query, key, value,
-                    a_slots, e_out, w_aug,
-                )
             a_sh = shard_edge_values(a0, tables.part)  # (S, E_pad, A)
             a_sh = jnp.concatenate([a_sh, jnp.ones_like(a_sh[..., :1])], axis=-1)
             w_aug = _affine_from_closure(
@@ -317,7 +315,7 @@ class _GraphTransformerBase(nn.Module):
         if tables is not None or num_chunks <= 1:
             return graph_transformer_conv(
                 query, key, value, edges, edge_index, num_dst, tables, edge_transform,
-                src_transform=src_transform, commute=commute, commute_kv=commute_kv,
+                src_transform=src_transform, commute=commute,
             )
         assert src_transform is None and commute is None, (
             "narrow-source dataflows are a bucketed-tables feature"
@@ -412,12 +410,9 @@ class GraphTransformerProcessorBlock(_GraphTransformerBase):
         width = self.num_heads * self.out_channels_conv
         lin_qkvs = nn.Dense(4 * width, use_bias=self.bias, dtype=self.dtype, name="lin_qkvs")
         lin_edge = self._edge_dense()
-        from anemoi_models_tpu.ops.slot_attention import PlannedTables
-
         commutable = isinstance(tables, GatherTables)
-        plannable = isinstance(tables, PlannedTables)
         if self.kv_src_gather == "narrow" or (
-            self.kv_src_gather == "commute" and not (commutable or plannable)
+            self.kv_src_gather == "commute" and not commutable
         ):
             # an explicit request that cannot be honored must say so (the
             # mapper block warns in the same situation); "auto" stays silent
@@ -434,31 +429,20 @@ class GraphTransformerProcessorBlock(_GraphTransformerBase):
                 f"processor block ({reason}); using the wide dataflow",
                 stacklevel=2,
             )
-        if self.kv_src_gather in ("auto", "commute") and (commutable or plannable):
+        if self.kv_src_gather in ("auto", "commute") and commutable:
             w, b = self._probe_affine(lin_qkvs, x.shape[-1])
             # query + self projections run on the nodes as usual (columns
             # [q | r] of the fused kernel); k/v columns ride the conv commuted
             w_qr = jnp.concatenate([w[:, :width], w[:, 3 * width:]], axis=-1)
             b_qr = jnp.concatenate([b[:width], b[3 * width:]], axis=-1)
             query, x_r = jnp.split(x @ w_qr + b_qr, 2, axis=-1)
-            if plannable:
-                # kernel-plan commute: the feats kernel projects k/v from the
-                # narrow slab inside VMEM; edge attrs ride raw (projected
-                # in-kernel / per outlier bucket)
-                out = self._conv_chunked(
-                    self._heads(query), x, None, edge_attr, edge_index, num_dst, 1,
-                    tables,
-                    edge_transform=self._edge_transform(lin_edge),
-                    commute_kv=(w[:, width: 3 * width], b[width: 3 * width]),
-                )
-            else:
-                proj = self._commuted_proj(
-                    w[:, width: 3 * width], b[width: 3 * width], lin_edge, edge_attr.shape[-1]
-                )
-                out = self._conv_chunked(
-                    self._heads(query), x, None, edge_attr, edge_index, num_dst, 1,
-                    tables, commute=proj,
-                )
+            proj = self._commuted_proj(
+                w[:, width: 3 * width], b[width: 3 * width], lin_edge, edge_attr.shape[-1]
+            )
+            out = self._conv_chunked(
+                self._heads(query), x, None, edge_attr, edge_index, num_dst, 1,
+                tables, commute=proj,
+            )
             b_, n_ = out.shape[0], out.shape[1]
             out = constrain(out, ("data", None, "model", None)).reshape(b_, n_, self.out_channels)
             out = constrain(out, ("data", "model", None))
@@ -516,9 +500,8 @@ class GraphTransformerMapperBlock(_GraphTransformerBase):
       per-row chain (embed → LayerNorm → k/v projection) on the gathered
       rows. Per-row ops commute with row gathers, so this is numerically the
       same computation with ~2×–20× fewer gather bytes (encoder: the raw
-      rows are ~22-wide vs 2×256-wide k/v) at extra MXU FLOPs on the padded
-      rows — the winning trade for a bytes-bound model (PERF.md round-2
-      "narrow-source mapper gathers"). Requires dense bucketed tables; any
+      rows are ~22-wide vs 2×256-wide k/v) at extra matmul FLOPs on the padded
+      rows — the better trade for a bytes-bound model. Requires dense bucketed tables; any
       other aggregation layout falls back to the wide dataflow.
     """
 

@@ -1,6 +1,6 @@
 """Graph convolution primitives over CSR-sorted batched edges.
 
-TPU-native re-design of reference ``layers/conv.py``: no MessagePassing
+Re-design of reference ``layers/conv.py``: no MessagePassing
 machinery — explicit gathers plus sorted segment reductions (see
 ``ops/segment.py``), batched over a leading (batch·ensemble) dim.
 
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
-import flax.linen as nn
+from anemoi_models_tpu import nn
 import jax.numpy as jnp
 
 from anemoi_models_tpu.layers.mlp import MLP
@@ -64,7 +64,6 @@ class GraphConv(nn.Module):
         )
         if tables is not None:
             from anemoi_models_tpu.layers.block import HaloTables
-            from anemoi_models_tpu.ops.slot_attention import PlannedTables
 
             if isinstance(tables, HaloTables):
                 # multi-chip default under a >1 model axis: 1-hop halo
@@ -72,7 +71,7 @@ class GraphConv(nn.Module):
                 # node gathers, reference block.py:203), running this
                 # module's OWN edge MLP shard-locally as a pure function —
                 # identical param tree to every other graph_impl
-                from anemoi_models_tpu.ops.slot_gnn import apply_mlp_params
+                from anemoi_models_tpu.layers.mlp import apply_mlp_params
                 from anemoi_models_tpu.parallel.api import get_mesh
                 from anemoi_models_tpu.parallel.halo_conv import (
                     halo_graph_conv,
@@ -99,30 +98,11 @@ class GraphConv(nn.Module):
                     ),
                     tables=tables.gnn_tables,
                 )
-            if isinstance(tables, PlannedTables):
-                # fused slot path (Pallas kernel on TPU, jnp twin elsewhere):
-                # edge features stay in slot layout between layers; the edge
-                # MLP runs as a pure function of this module's own params
-                # (identical param tree to the dense path)
-                from anemoi_models_tpu.ops.slot_gnn import SlotEdges, planned_gnn_conv
-
-                assert x_src is x_dst, "graph_impl='pallas' GraphConv requires a self-graph"
-                e_width = (
-                    edge_attr.slots.shape[-1]
-                    if isinstance(edge_attr, SlotEdges)
-                    else edge_attr.shape[-1]
-                )
-                in_width = 2 * x_dst.shape[-1] + e_width
-                _ = mlp(jnp.zeros((1, in_width), self.dtype))  # materialize params
-                w = mlp.variables["params"]
-                return planned_gnn_conv(
-                    x_dst, edge_attr, w, tables.plan, self.activation, tables.impl
-                )
         x_i = gather_nodes(x_dst, edge_index[1])  # destination (target) features
         x_j = gather_nodes(x_src, edge_index[0])  # source features
         edges_new = mlp(jnp.concatenate([x_i, x_j, edge_attr], axis=-1)) + edge_attr
         if tables is not None:
-            # TPU fast path: degree-bucketed gather + static-width masked
+            # degree-bucketed gather + static-width masked
             # reductions instead of a scatter (fwd AND bwd when transpose
             # tables are present)
             buckets, reassemble, *rest = tables
@@ -145,14 +125,13 @@ def graph_transformer_conv(
     edge_transform=None,
     src_transform=None,
     commute=None,
-    commute_kv=None,
 ) -> jnp.ndarray:
     """Per-edge multi-head attention restricted to graph edges.
 
     ``query`` (B, Nd, H, D); ``key``/``value`` (B, Ns, H, D);
     ``edge_attr`` (B, E, H, D) or None; returns (B, Nd, H, D).
     With ``tables`` = (degree buckets, reassemble) from
-    ``graphs.partition.bucketed_neighbor_tables``, runs the scatter-free TPU
+    ``graphs.partition.bucketed_neighbor_tables``, runs the scatter-free
     path. With ``src_transform`` (bucketed path only), ``key`` is a narrow
     (B, Ns, A) source tensor gathered once and projected to k/v per gathered
     row (see :func:`anemoi_models_tpu.ops.dense_graph.bucketed_edge_attention`).
@@ -163,27 +142,6 @@ def graph_transformer_conv(
     (:func:`~anemoi_models_tpu.ops.dense_graph.commuted_edge_attention`).
     """
     if tables is not None:
-        from anemoi_models_tpu.ops.slot_attention import PlannedTables, planned_edge_attention
-
-        if isinstance(tables, PlannedTables):
-            # fused slot-layout path (Pallas kernel on TPU, jnp twin elsewhere)
-            assert src_transform is None and commute is None, (
-                "narrow-source dataflows are a bucketed-tables feature"
-            )
-            if commute_kv is not None:
-                # commuted dataflow: ``key`` is the narrow (B, Ns, F) node
-                # feature tensor; the kernel projects k/v inside VMEM
-                from anemoi_models_tpu.ops.slot_attention import planned_edge_attention_feats
-
-                w_kv, b_kv = commute_kv
-                return planned_edge_attention_feats(
-                    query, key, w_kv, b_kv, edge_attr, edge_transform,
-                    tables.plan, impl=tables.impl,
-                )
-            return planned_edge_attention(
-                query, key, value, edge_attr, edge_transform, tables.plan, impl=tables.impl
-            )
-        assert commute_kv is None, "commute_kv is a kernel-plan (PlannedTables) feature"
         buckets, reassemble, *rest = tables
         if commute is not None:
             return commuted_edge_attention(
@@ -196,7 +154,7 @@ def graph_transformer_conv(
             transpose=rest[0] if rest else None,
             src_transform=src_transform,
         )
-    assert src_transform is None and commute is None and commute_kv is None, (
+    assert src_transform is None and commute is None, (
         "narrow-source dataflows are a bucketed-tables feature"
     )
     if num_dst is None:

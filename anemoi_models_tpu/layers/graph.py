@@ -9,7 +9,7 @@ node axis shardable on the device mesh.
 
 from __future__ import annotations
 
-import flax.linen as nn
+from anemoi_models_tpu import nn
 import jax.numpy as jnp
 import numpy as np
 

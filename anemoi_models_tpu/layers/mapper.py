@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-import flax.linen as nn
+from anemoi_models_tpu import nn
 import jax
 import jax.numpy as jnp
 
@@ -53,8 +53,6 @@ class _GraphTransformerBaseMapper(nn.Module):
     src_grid_size: int = 0
     dst_grid_size: int = 0
     graph_impl: str = "dense"
-    plan_block_nodes: int = 0  # kernel-plan geometry; 0 = default (128)
-    plan_slab_width: int = 0  # 0 = auto-select
     # "commute" (the "auto" default on the dense path): gather the narrow
     # source rows once and move the k/v projections across the gather onto
     # the query/output sides — zero matmuls on the padded slot axis
@@ -98,20 +96,6 @@ class _GraphTransformerBaseMapper(nn.Module):
         return edge_attr, jnp.asarray(edge_index_np)
 
     def _tables(self, num_dst: int, num_src: int):
-        if self.graph_impl == "pallas":
-            # slot-kernel plan; profitable when the plan covers most edges
-            # (e.g. the decoder over a mesh-ordered data grid — see
-            # graphs/build.py data_order="mesh")
-            from anemoi_models_tpu.graphs.kernel_plan import edge_set_kernel_plan
-            from anemoi_models_tpu.ops.slot_attention import PlannedTables
-
-            plan = edge_set_kernel_plan(
-                self.sub_graph, num_dst, num_src,
-                block_nodes=self.plan_block_nodes or 128,
-                slab_width=self.plan_slab_width,
-                passes=0,  # ANEMOI_PLAN_PASSES (multi-window; attention path)
-            )
-            return PlannedTables(plan=plan, impl="auto")
         if self.graph_impl != "dense":
             return None
         from anemoi_models_tpu.parallel.api import get_mesh
@@ -145,7 +129,7 @@ class _GraphTransformerBaseMapper(nn.Module):
             jax.checkpoint_policies.offload_dot_with_no_batch_dims("device", "pinned_host")
             if self.cpu_offload else None
         )
-        Block = nn.remat(GraphTransformerMapperBlock, static_argnums=(4, 5), policy=policy)
+        Block = nn.remat(GraphTransformerMapperBlock, policy=policy)
         return Block(
             in_channels=self.hidden_dim,
             hidden_dim=self.mlp_hidden_ratio * self.hidden_dim,
@@ -274,7 +258,7 @@ class _GNNBaseMapper(nn.Module):
             jax.checkpoint_policies.offload_dot_with_no_batch_dims("device", "pinned_host")
             if self.cpu_offload else None
         )
-        Block = nn.remat(GraphConvMapperBlock, static_argnums=(4,), policy=policy)
+        Block = nn.remat(GraphConvMapperBlock, policy=policy)
         return Block(
             in_channels=self.hidden_dim,
             out_channels=self.hidden_dim,

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-import flax.linen as nn
+from anemoi_models_tpu import nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,7 +68,7 @@ def _halo_gnn_layout(sub_graph: EdgeSet, num_dst: int, shards: int):
     (``HaloGNNTables``) when degrees are near-uniform, degree-bucketed
     (``HaloBucketedTables``) when the worst-shard max degree would make the
     flat padding ruinous (skewed graphs: hub nodes, polar lat/lon rows)."""
-    from anemoi_models_tpu.graphs.kernel_plan import (
+    from anemoi_models_tpu.graphs.partition import (
         build_halo_bucketed_tables,
         build_halo_gnn_tables,
     )
@@ -91,23 +91,20 @@ def _tables(
     graph_impl: str,
     num_src: Optional[int] = None,
     allow_halo: bool = False,
-    halo_plans: bool = True,
-    plan_passes: int = 1,
+    gnn_layout: bool = False,
 ):
     """Edge layout for the conv fast paths.
 
     - "dense": degree-bucketed neighbor tables (XLA gather path)
-    - "pallas": slot-layout kernel plan (fused Pallas edge attention on TPU,
-      jnp twin elsewhere); GraphTransformer flavors only
-    - "segment": None (plain COO segment ops)
+    - "segment": None (plain COO segment ops, the reference)
 
     With ``allow_halo`` (self-graph processors), an active mesh with a >1
     ``model`` axis routes to the halo-partitioned conv by default —
     O(boundary) exchange instead of GSPMD's full k/v gathers.
-    ``halo_plans=False`` (GNN flavor) skips building the per-shard attention
-    kernel plans; the halo GraphConv uses the partition only.
+    ``gnn_layout=True`` (GNN flavor) adds the scatter-free per-shard gather
+    layouts the halo GraphConv uses.
     """
-    if allow_halo and graph_impl in ("dense", "pallas", "halo"):
+    if allow_halo and graph_impl in ("dense", "halo"):
         from anemoi_models_tpu.parallel.api import get_mesh
 
         mesh = get_mesh()
@@ -115,39 +112,11 @@ def _tables(
             from anemoi_models_tpu.layers.block import HaloTables
 
             shards = mesh.shape["model"]
-            part, cache = _halo_part(sub_graph, num_dst, shards)
-            plans = None
+            part, _ = _halo_part(sub_graph, num_dst, shards)
             gnn_tables = None
-            if graph_impl == "pallas" and halo_plans:
-                import os
-
-                from anemoi_models_tpu.graphs.kernel_plan import build_halo_kernel_plans
-
-                nb = int(os.environ.get("ANEMOI_PLAN_BLOCK_NODES", "128"))
-                kp = plan_passes or int(os.environ.get("ANEMOI_PLAN_PASSES", "1"))
-                pkey = ("halo_kernel_plans", num_dst, shards, nb, kp)
-                if pkey not in cache:
-                    cache[pkey] = build_halo_kernel_plans(
-                        part, block_nodes=nb,
-                        passes=kp if kp < 0 else max(kp, 1),
-                    )
-                plans = cache[pkey]
-            if not halo_plans:  # GNN flavor: scatter-free gather layouts
+            if gnn_layout:
                 _, gnn_tables = _halo_gnn_layout(sub_graph, num_dst, shards)
-            return HaloTables(part=part, plans=plans, gnn_tables=gnn_tables)
-    if graph_impl == "pallas":
-        import os
-
-        from anemoi_models_tpu.graphs.kernel_plan import edge_set_kernel_plan
-        from anemoi_models_tpu.ops.slot_attention import PlannedTables
-
-        nb = int(os.environ.get("ANEMOI_PLAN_BLOCK_NODES", "128"))
-        sw = int(os.environ.get("ANEMOI_PLAN_SLAB_WIDTH", "0"))  # 0 = auto
-        plan = edge_set_kernel_plan(
-            sub_graph, num_dst, num_src or num_dst, block_nodes=nb, slab_width=sw,
-            passes=plan_passes,
-        )
-        return PlannedTables(plan=plan, impl="auto")
+            return HaloTables(part=part, gnn_tables=gnn_tables)
     if graph_impl != "dense":
         return None
     from anemoi_models_tpu.graphs.partition import edge_set_gather_tables
@@ -167,7 +136,7 @@ def _remat(module_class, remat_policy: str, cpu_offload: bool = False):
       backward at moderate extra memory.
     - "none": no rematerialization.
 
-    ``cpu_offload=True`` is the TPU-native equivalent of the reference's
+    ``cpu_offload=True`` is the equivalent of the reference's
     ``offload_wrapper`` (``layers/processor.py:57-59``): saved matmul
     activations are offloaded to pinned host memory between forward and
     backward instead of being recomputed or kept in HBM.
@@ -264,7 +233,7 @@ class GNNProcessor(nn.Module):
         edge_index = jnp.asarray(edge_index_np)
         tables = _tables(
             self.sub_graph, x.shape[-2], self.graph_impl,
-            allow_halo=True, halo_plans=False,
+            allow_halo=True, gnn_layout=True,
         )
 
         Chunk = _remat(GNNProcessorChunk, self.remat_policy, self.cpu_offload)
@@ -315,13 +284,7 @@ class GraphTransformerProcessor(nn.Module):
             tensor_size=edge_attr_np.shape[0], trainable_size=self.trainable_size, name="trainable"
         )(jnp.asarray(edge_attr_np, dtype=self.dtype), batch_size)
         edge_index = jnp.asarray(edge_index_np)
-        # plan_passes=0: read ANEMOI_PLAN_PASSES (multi-window layout for
-        # high-refinement meshes; attention flavors only — the GNN slot path
-        # threads edge state per-plan and stays single-pass)
-        tables = _tables(
-            self.sub_graph, x.shape[-2], self.graph_impl, allow_halo=True,
-            plan_passes=0,
-        )
+        tables = _tables(self.sub_graph, x.shape[-2], self.graph_impl, allow_halo=True)
 
         Chunk = _remat(GraphTransformerProcessorChunk, self.remat_policy, self.cpu_offload)
         for c in range(self.num_chunks):

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import Callable
 
-import flax.linen as nn
+from anemoi_models_tpu import nn
 import jax
 import jax.numpy as jnp
 
@@ -42,9 +42,9 @@ class AutocastLayerNorm(nn.Module):
 
     The reference's AutocastLayerNorm (``layers/utils.py:27-39``) upcasts the
     whole computation to fp32 because torch LayerNorm in bf16 is fully bf16.
-    flax's LayerNorm already accumulates mean/variance in fp32 regardless of
+    ``nn.LayerNorm`` already accumulates mean/variance in fp32 regardless of
     ``dtype``, so keeping IO in the input dtype preserves the numerical
-    discipline while halving the LN's HBM traffic in bf16 runs.
+    discipline while halving the LN's memory traffic in bf16 runs.
     """
 
     use_bias: bool = True
@@ -56,5 +56,4 @@ class AutocastLayerNorm(nn.Module):
             use_bias=self.use_bias,
             use_scale=self.use_scale,
             dtype=x.dtype,
-            param_dtype=jnp.float32,
         )(x)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
+from anemoi_models_tpu import nn
 import jax.numpy as jnp
 import numpy as np
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 
 
-import flax.linen as nn
+from anemoi_models_tpu import nn
 import jax.numpy as jnp
 
 from anemoi_models_tpu.layers.graph import NamedNodesAttributes

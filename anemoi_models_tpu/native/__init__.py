@@ -21,7 +21,6 @@ __all__ = [
     "sort_edges_csr",
     "dense_tables",
     "fill_bucket_tables",
-    "kernel_plan_slots",
     "blosclz_decompress",
     "lz4_decompress",
     "sort_positions_by_row",
@@ -38,7 +37,7 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
 
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "graph_native.cpp")
     cache_dir = os.environ.get(
-        "ANEMOI_TPU_NATIVE_CACHE", os.path.join(tempfile.gettempdir(), "anemoi_tpu_native")
+        "ANEMOI_NATIVE_CACHE", os.path.join(tempfile.gettempdir(), "anemoi_native")
     )
     os.makedirs(cache_dir, exist_ok=True)
     # content-keyed cache: mtime comparisons mislead when clones/worktrees
@@ -64,13 +63,6 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
         lib.max_in_degree.restype = ctypes.c_int32
         lib.subdivide.argtypes = [f64p, ctypes.c_int64, i64p, ctypes.c_int64, f64p, i64p]
         lib.subdivide.restype = ctypes.c_int64
-        f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-        lib.kernel_plan_slots.argtypes = [
-            i64p, i64p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-            i32p, i32p, f32p, i32p, u8p,
-        ]
-        lib.kernel_plan_slots.restype = None
         lib.sort_positions_by_row.argtypes = [i64p, ctypes.c_int64, ctypes.c_int64, i64p, i64p, i64p]
         lib.sort_positions_by_row.restype = ctypes.c_int64
         lib.sort_positions_by_row_masked.argtypes = [
@@ -138,39 +130,6 @@ def dense_tables(edge_index_sorted: np.ndarray, num_dst: int, pad_to_multiple: i
     mask = np.empty((num_dst, max_deg), dtype=np.uint8)
     lib.dense_tables(src, dst, e, num_dst, max_deg, edge_ids, src_ids, mask)
     return edge_ids, src_ids, mask.astype(bool)
-
-
-def kernel_plan_slots(
-    src: np.ndarray,
-    dst: np.ndarray,
-    num_dst: int,
-    num_src: int,
-    block_nodes: int,
-    cap: int,
-    slab_width: int,
-):
-    """Slot-assignment core of ``graphs.kernel_plan.build_edge_kernel_plan``
-    (per-block window search + slot placement); None if native unavailable.
-    Returns ``(slab_start, src_slab_idx, slot_mask, edge_ids, outlier_code)``
-    where code 0 = slotted, 1 = out-of-window, 2 = cap overflow."""
-    lib = _lib()
-    if lib is None:
-        return None
-    src = np.ascontiguousarray(src, dtype=np.int64)
-    dst = np.ascontiguousarray(dst, dtype=np.int64)
-    e = src.shape[0]
-    num_blocks = -(-num_dst // block_nodes)
-    rows = num_blocks * block_nodes * cap
-    slab_start = np.empty(num_blocks, dtype=np.int32)
-    src_slab_idx = np.empty(rows, dtype=np.int32)
-    slot_mask = np.empty(rows, dtype=np.float32)
-    edge_ids = np.empty(rows, dtype=np.int32)
-    code = np.empty(max(e, 1), dtype=np.uint8)
-    lib.kernel_plan_slots(
-        src, dst, e, num_dst, num_src, block_nodes, cap, slab_width,
-        slab_start, src_slab_idx, slot_mask, edge_ids, code,
-    )
-    return slab_start, src_slab_idx, slot_mask, edge_ids, code[:e]
 
 
 def sort_positions_by_row(ids: np.ndarray, num_rows: int):

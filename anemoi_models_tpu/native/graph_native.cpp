@@ -119,74 +119,6 @@ int64_t subdivide(const double* verts, int64_t nv, const int64_t* faces,
   return next;
 }
 
-// Slot-layout kernel-plan core (graphs/kernel_plan.py:build_edge_kernel_plan
-// hot loop): per destination block, pick the slab window holding the most
-// sources, assign up to `cap` in-window edges per destination to slots, and
-// flag the rest as outliers — 1 = out-of-window, 2 = per-destination cap
-// overflow (the caller reconstructs numpy's exact per-block spill order from
-// the codes). Slot assignment is a bit-exact twin of the numpy
-// implementation (same argmax tie-breaking, same 8-row window alignment).
-// Edges must be CSR-sorted by destination.
-// `rows` = ceil(num_dst/block_nodes)*block_nodes*cap.
-void kernel_plan_slots(const int64_t* src, const int64_t* dst,
-                       int64_t num_edges, int32_t num_dst, int32_t num_src,
-                       int32_t block_nodes, int32_t cap, int32_t slab_width,
-                       int32_t* slab_start,    // (num_blocks)
-                       int32_t* src_slab_idx,  // (rows)
-                       float* slot_mask,       // (rows)
-                       int32_t* edge_ids,      // (rows)
-                       uint8_t* is_outlier) {  // (num_edges)
-  int32_t num_blocks = (num_dst + block_nodes - 1) / block_nodes;
-  int64_t rows = (int64_t)num_blocks * block_nodes * cap;
-  std::memset(src_slab_idx, 0, sizeof(int32_t) * rows);
-  std::memset(slot_mask, 0, sizeof(float) * rows);
-  std::memset(edge_ids, 0, sizeof(int32_t) * rows);
-  std::memset(is_outlier, 0, sizeof(uint8_t) * num_edges);
-
-  std::vector<int64_t> sorted_src;
-  std::vector<int32_t> deg(block_nodes);
-  int64_t e0 = 0;
-  for (int32_t b = 0; b < num_blocks; ++b) {
-    int64_t dlo = (int64_t)b * block_nodes, dhi = dlo + block_nodes;
-    int64_t e1 = e0;
-    while (e1 < num_edges && dst[e1] < dhi) ++e1;
-
-    // best window: for each sorted source k, count of sources in
-    // [src[k]-width+1, src[k]]; first argmax wins (numpy tie-break)
-    int32_t start = 0;
-    if (e1 > e0) {
-      sorted_src.assign(src + e0, src + e1);
-      std::sort(sorted_src.begin(), sorted_src.end());
-      int64_t m = (int64_t)sorted_src.size();
-      int64_t best_k = 0, best_count = -1, lo = 0, best_lo = 0;
-      for (int64_t k = 0; k < m; ++k) {
-        while (sorted_src[lo] < sorted_src[k] - slab_width + 1) ++lo;
-        int64_t count = k + 1 - lo;
-        if (count > best_count) { best_count = count; best_k = k; best_lo = lo; }
-      }
-      int64_t s = sorted_src[best_k] - slab_width + 1;
-      if (sorted_src[best_lo] > s) s = sorted_src[best_lo];
-      int64_t hi = num_src - slab_width; if (hi < 0) hi = 0;
-      if (s < 0) s = 0; if (s > hi) s = hi;
-      start = (int32_t)((s / 8) * 8);
-    }
-    slab_start[b] = start;
-
-    std::fill(deg.begin(), deg.end(), 0);
-    for (int64_t e = e0; e < e1; ++e) {
-      if (src[e] < start || src[e] >= start + slab_width) { is_outlier[e] = 1; continue; }
-      int32_t d_local = (int32_t)(dst[e] - dlo);
-      int32_t pos = deg[d_local]++;
-      if (pos >= cap) { is_outlier[e] = 2; continue; }
-      int64_t r = dst[e] * (int64_t)cap + pos;
-      src_slab_idx[r] = (int32_t)(src[e] - start);
-      slot_mask[r] = 1.0f;
-      edge_ids[r] = (int32_t)e;
-    }
-    e0 = e1;
-  }
-}
-
 // Stable counting sort of live gather positions by the row they read.
 // ids: (P,) source row per position, -1 = dead/padded. Outputs:
 //   counts      (num_rows) int64 — live positions per row (in-degree)

@@ -9,11 +9,6 @@ from anemoi_models_tpu.ops.dense_graph import (
 )
 from anemoi_models_tpu.ops.ring_attention import halo_window_attention
 from anemoi_models_tpu.ops.segment import gather_nodes, segment_max, segment_softmax, segment_sum
-from anemoi_models_tpu.ops.slot_attention import (
-    merge_partials,
-    planned_edge_attention,
-)
-from anemoi_models_tpu.ops.slot_gnn import planned_gnn_conv
 
 __all__ = [
     "dot_product_attention",
@@ -28,7 +23,4 @@ __all__ = [
     "gather_edges",
     "masked_neighbor_sum",
     "take_rows",
-    "merge_partials",
-    "planned_edge_attention",
-    "planned_gnn_conv",
 ]

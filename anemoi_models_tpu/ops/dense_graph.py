@@ -1,10 +1,10 @@
-"""Dense (padded-neighbor) graph aggregation ops — the TPU fast path.
+"""Dense (padded-neighbor) graph aggregation ops — the default graph path.
 
 Given the build-time dense neighbor tables (``graphs/partition.py``),
-aggregation and per-edge attention become gathers plus reductions over a
-static ``max_degree`` axis: no scatter, no segment ops, fully vectorized on
-the VPU with the contraction work on the MXU. These are numerically identical
-to the ``ops/segment.py`` reference path (tests assert it).
+aggregation and per-edge attention become row gathers plus reductions over a
+static ``max_degree`` axis: no scatter and no segment ops, forward or
+backward. These are numerically identical to the ``ops/segment.py``
+reference path (tests assert it).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ __all__ = [
 
 
 class PaddedTranspose(NamedTuple):
-    """Single-cap transpose layout (``graphs.kernel_plan._padded_transpose``):
+    """Single-cap transpose layout (``graphs.partition._padded_transpose``):
     per source row, the gather positions reading it, padded to the max
     multiplicity. Arrays may be traced (shard-sliced inside shard_map)."""
 
@@ -45,8 +45,8 @@ def _adjoint_chunks(rows: int, m: int, row_bytes: int) -> int:
 
     The naive adjoint materializes a (rows, M, C) gather before its
     mask-and-sum; at O1280 the decoder mapper's transpose table makes that
-    a 46 GiB temp — the single largest allocation of the 16-chip train
-    step (round-5 measurement). Chunking the M axis keeps only an
+    the single largest allocation of the sharded train step. Chunking the
+    M axis keeps only an
     (rows, m_chunk, C) transient live (the accumulator is (rows, C)).
     ``ANEMOI_ADJOINT_CHUNK_BYTES`` bounds the transient (default 1 GiB;
     0 disables chunking)."""
@@ -314,7 +314,7 @@ position_gather.defvjp(_pg_fwd, _pg_bwd)
 
 def take_rows(x: jnp.ndarray, ids, axis: int, adjoint=None) -> jnp.ndarray:
     """``jnp.take`` whose backward is a custom gather instead of XLA's
-    scatter-add (serialized on TPU). ``adjoint(g) -> grad_x`` must implement
+    scatter-add. ``adjoint(g) -> grad_x`` must implement
     the transpose-gather; with ``adjoint=None`` this is plain ``jnp.take``."""
     if adjoint is None:
         return jnp.take(x, ids, axis=axis)
@@ -526,7 +526,7 @@ def commuted_edge_attention(
 
         # query-side projections: (B, nb, H, C) / (B, nb, H, A) — per-node
         # matmuls; rounded to the compute dtype so the slot contractions stay
-        # on the bf16 MXU path
+        # on the bf16 tensor-core path
         qk = jnp.einsum(
             "...nhd,chd->...nhc", q_b, proj.w_k, preferred_element_type=jnp.float32
         ).astype(dt)
@@ -614,9 +614,8 @@ def bucketed_edge_attention(
     produces k/v per gathered row. Every op between the source rows and k/v
     (embedding, LayerNorm, the k/v projection) is per-row, so it commutes
     with the row gather exactly — this replaces two wide (H*D) gathers with
-    one narrow one, trading HBM gather bytes for MXU FLOPs on the padded
-    rows (the right trade on a bytes-bound model; see PERF.md round-2
-    "narrow-source mapper gathers").
+    one narrow one, trading gather bytes for matmul FLOPs on the padded
+    rows (the right trade on a bytes-bound model).
 
     ``return_partials=True`` emits merge-form ``(num, den, m)`` fp32 partials
     (un-normalized, max −1e30 and den 0 for edge-less destinations) instead

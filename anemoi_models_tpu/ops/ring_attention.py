@@ -5,7 +5,7 @@ all-to-alls around full attention (``distributed/transformer.py:21-130``).
 For *windowed* attention that is wasteful: each query only needs keys within
 ±w positions, so a sequence-sharded layout needs just a ±w halo of k/v from
 the ring neighbors — two ``ppermute`` sends of O(w) payload instead of
-all-to-alls of O(N). This is SURVEY.md §5's "TPU-native answer" to the
+all-to-alls of O(N) — the sharded answer (SURVEY.md §5) to the
 reference's long-context machinery.
 
 Sequences that do not divide the model axis are zero-padded internally (the
@@ -69,7 +69,7 @@ def halo_window_attention(
     """Windowed attention over (B, H, N, D) with N sharded on ``axis``.
 
     Communication: two ppermute halo sends of width ``window_size`` per
-    k and v — O(w) payload on the ICI ring. ``dropout_rate`` > 0 applies
+    k and v — O(w) payload between neighbouring devices. ``dropout_rate`` > 0 applies
     attention-weight dropout inside each shard (reference ``dropout_p``
     semantics; the draw pattern is shard-count-dependent, as any sharded
     dropout is) — the sequence-parallel training path no longer falls back

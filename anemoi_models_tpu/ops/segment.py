@@ -1,12 +1,12 @@
-"""Segment ops: the TPU-native replacement for torch_geometric scatter/softmax.
+"""Segment ops: the replacement for torch_geometric scatter/softmax.
 
 The reference's hot graph ops are ``scatter(..., reduce="sum")``
 (``layers/conv.py:74``) and per-destination segment ``softmax``
 (``layers/conv.py:139``), both CUDA kernels from torch_geometric. Here they are
 expressed over **CSR-sorted** edge arrays (sorted by destination at graph
 build time, ``graphs/container.py``) so XLA can lower them to efficient sorted
-segment reductions; a fused Pallas edge-attention kernel lives in
-``ops/pallas`` for the TPU fast path.
+segment reductions. This is the plain reference the degree-bucketed
+gathers of ``ops/dense_graph.py`` are tested against.
 
 All ops are batched: ``data`` has shape (batch, E, ...) and ``segment_ids``
 (E,) shared across the batch.

@@ -1,6 +1,6 @@
 """Device-mesh context + sharding-constraint API.
 
-The TPU-native replacement for the reference's "model comm group" plumbing
+The replacement for the reference's "model comm group" plumbing
 (``distributed/primitives.py``, ``distributed/graph.py``): instead of
 threading a ProcessGroup through every forward and hand-writing collective
 autograd Functions, model code annotates tensors with named-sharding
@@ -62,11 +62,10 @@ def make_mesh(
 ) -> Mesh:
     """Build a (data, model) mesh over the available devices.
 
-    The model axis should map to tightly-coupled (ICI) devices: JAX device
-    order within a host already enumerates the local ICI domain first, so a
-    row-major reshape keeps the model axis intra-host where possible —
-    matching the reference's intent that a model-comm group spans NVLink-class
-    links, with the data axis free to cross DCN.
+    A plain row-major reshape of JAX's device order: the cards of one host
+    reach each other all to all over NVLink at one rate, so the mesh
+    follows the algorithm alone. Within a host the model axis holds
+    consecutive devices; across hosts, the data axis.
     """
     devices = list(devices if devices is not None else jax.devices())
     assert data * model <= len(devices), (
@@ -96,33 +95,22 @@ def batch_sharding(x_ndim: int, batch_axis: int = 0) -> Sequence[Optional[str]]:
 
 
 def make_hybrid_mesh(
-    dcn_data: int,
-    ici_data: int = 1,
+    hosts: int,
+    data_per_host: int = 1,
     model: int = 1,
 ) -> Mesh:
-    """Multi-host mesh: the data axis spans DCN (slices), the model axis
-    stays inside an ICI domain — the reference's intent of one model
-    instance per tightly-coupled group (SURVEY.md §2.3) at pod scale.
+    """Multi-host mesh: the data axis spans hosts (and ``data_per_host``
+    groups within each), the model axis stays inside one host's NVLink
+    domain — the reference's intent of one model instance per
+    tightly-coupled group (SURVEY.md §2.3) at cluster scale.
 
-    Uses ``mesh_utils.create_hybrid_device_mesh`` so device order respects
-    the physical DCN/ICI topology; the two data factors are flattened into
-    one "data" axis.
+    JAX orders devices host by host, so consecutive devices share a host and
+    a row-major reshape keeps each model group on one host; the two data
+    factors are flattened into one "data" axis.
     """
-    from jax.experimental import mesh_utils
-
     devices = jax.devices()
-    if getattr(devices[0], "slice_index", None) is not None:
-        devices = mesh_utils.create_hybrid_device_mesh(
-            mesh_shape=(ici_data, model),
-            dcn_mesh_shape=(dcn_data, 1),
-        )
-    else:
-        # no slice topology (single slice, or CPU-emulated devices in
-        # tests): the DCN factor is layout-only — consecutive devices stay
-        # in the same model group, mirroring the hybrid order
-        n = dcn_data * ici_data * model
-        if len(devices) < n:
-            raise ValueError(f"hybrid mesh needs {n} devices, have {len(devices)}")
-        devices = devices[:n]
-    devices = np.asarray(devices).reshape(dcn_data * ici_data, model)
+    n = hosts * data_per_host * model
+    if len(devices) < n:
+        raise ValueError(f"hybrid mesh needs {n} devices, have {len(devices)}")
+    devices = np.asarray(devices[:n]).reshape(hosts * data_per_host, model)
     return Mesh(devices, axis_names=("data", "model"))

@@ -3,12 +3,11 @@
 The reference holds full weights and full Adam moments on every rank
 (SURVEY §2.2: "TP absent — every rank holds full weights"; all Linear
 layers unsharded, reference ``layers/block.py:333-341``) and leaves
-optimizer memory to the external trainer. At AIFS production widths that
-replication is the measured blocker for the 8-chip train step (PERF.md
-round 3: C=512 O1280 projected ~121 GiB/chip, of which params + fp32 Adam
-moments are 5.2 GiB of pure replication per chip).
+optimizer memory to the external trainer. At AIFS production widths the
+replicated params and fp32 Adam moments are pure per-device overhead of
+a sharded O1280 train step.
 
-TPU-native answer: express the memory optimization as *shardings*, not new
+The answer here: express the memory optimization as *shardings*, not new
 collectives. Each large array leaf is assigned a
 :class:`~jax.sharding.NamedSharding` that splits its largest divisible
 dimension over a mesh axis; GSPMD then inserts the ZeRO collectives
@@ -23,8 +22,8 @@ automatically with AD-derived adjoints:
   at its use site in forward/backward (and re-gathered under remat), the
   update never leaves the shard. Saves ``3 x params x (N-1)/N`` at the cost
   of per-layer weight all-gathers — the right trade once replicated params
-  themselves pressure HBM, or when the data axis is wide and the gathers
-  ride ICI.
+  themselves pressure device memory, or when the data axis is wide and
+  the gathers ride NVLink.
 
 The axis is configurable: over ``"data"`` this is classic ZeRO/FSDP over
 data-parallel replicas; over ``"model"`` it composes with the grid-sharded

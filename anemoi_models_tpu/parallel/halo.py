@@ -1,6 +1,6 @@
 """Device-side 1-hop halo exchange over the model axis (shard_map).
 
-The TPU-native alternative to the reference's full all-gather of node
+The sharded alternative to the reference's full all-gather of node
 features before each GNN layer (``sync_tensor``, ``distributed/graph.py:
 92-113`` used at ``layers/block.py:203``): node rows are contiguously sharded
 over the ``model`` mesh axis, and each layer exchanges only the *boundary

@@ -15,7 +15,7 @@ layout of ``layers/mlp.py``.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +31,6 @@ __all__ = [
     "graph_conv_params",
     "halo_graph_conv",
     "halo_graph_transformer_conv",
-    "halo_planned_edge_attention",
     "shard_edge_values",
 ]
 
@@ -83,7 +82,7 @@ def halo_graph_conv(
     activation: str = "SiLU",
     axis: str = "model",
     apply_fn: Optional[Callable] = None,
-    tables=None,  # graphs.kernel_plan.HaloGNNTables -> scatter-free path
+    tables=None,  # graphs.partition.HaloGNNTables -> scatter-free path
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """One GraphConv aggregation under halo exchange.
 
@@ -98,17 +97,17 @@ def halo_graph_conv(
     ``layers/block.py:205-221``) without ever gathering edges globally.
 
     ``apply_fn(params, cat) -> msg`` overrides the edge-MLP body (default
-    :func:`apply_edge_mlp`); pass ``ops/slot_gnn.apply_mlp_params`` bound to
-    a flax ``MLP`` param tree to run a standard ``GraphConv``'s own MLP
+    :func:`apply_edge_mlp`); pass ``layers.mlp.apply_mlp_params`` bound to
+    an ``MLP`` param tree to run a standard ``GraphConv``'s own MLP
     shard-locally (identical param layout to the single-device path).
 
-    With ``tables`` (``graphs.kernel_plan.HaloGNNTables``), every gather and
+    With ``tables`` (``graphs.partition.HaloGNNTables``), every gather and
     the sum-aggregation run over static padded layouts with take-only
     adjoints — no HLO scatter in forward or backward (the default path uses
     segment ops).
     """
     apply_fn = apply_fn or (lambda p, cat: apply_edge_mlp(p, cat, activation))
-    from anemoi_models_tpu.graphs.kernel_plan import HaloBucketedTables
+    from anemoi_models_tpu.graphs.partition import HaloBucketedTables
 
     bc = jnp.asarray(part.boundary_contrib)
     hs = jnp.asarray(part.halo_select)
@@ -285,11 +284,10 @@ def halo_graph_transformer_conv(
             halo = jnp.take(pool, hs_blk[0], axis=1) * hm_blk[0][None, :, None].astype(t_blk.dtype)
             return jnp.concatenate([t_blk, halo], axis=1)
 
-        # every per-edge tensor stays in the FLAT (..., H*D) layout: a bf16
-        # minor dim of D (32 at C=512/H=16) is lane-padded 4x in HBM — the
-        # O1280 buffer assignment attributed ~2.5 GiB/chip of pure padding
-        # to these (E, H, D) buffers. H*D is a lane multiple, and the
-        # (H, D) views below fuse into their reductions unmaterialized.
+        # every per-edge tensor stays in the FLAT (..., H*D) layout: a small
+        # minor dim of D (32 at C=512/H=16) can be padded by the compiler's
+        # tiled layouts, H*D cannot, and the (H, D) views below fuse into
+        # their reductions unmaterialized.
         k_ext, v_ext = ext(k_blk), ext(v_blk)  # (B, N_ext, H*D)
 
         edges = le_blk[0]  # (E_pad, 2) [src_ext, dst_local]
@@ -330,164 +328,6 @@ def halo_graph_transformer_conv(
         out_specs=P(None, axis, None),
     )
     out = run(q_pad, k_pad, v_pad, bc, hs, hm, le, em, a_sharded, w_aug)
-    return unpad_nodes(out, part).reshape(b, n, h, d)
-
-
-@jax.custom_vjp
-def _perm_rows(x: jnp.ndarray, perm: jnp.ndarray, inv: jnp.ndarray) -> jnp.ndarray:
-    """Permute rows (axis -2) by a bijection; the adjoint is the inverse
-    permutation gather — never a scatter."""
-    return jnp.take(x, perm, axis=-2)
-
-
-def _perm_rows_fwd(x, perm, inv):
-    return jnp.take(x, perm, axis=-2), (perm, inv)
-
-
-def _perm_rows_bwd(res, g):
-    perm, inv = res
-    f0 = np.zeros(perm.shape, dtype=jax.dtypes.float0)
-    return jnp.take(g, inv, axis=-2), f0, np.zeros(inv.shape, dtype=jax.dtypes.float0)
-
-
-_perm_rows.defvjp(_perm_rows_fwd, _perm_rows_bwd)
-
-
-def halo_planned_edge_attention(
-    mesh: Mesh,
-    part: HaloPartition,
-    sp,  # graphs.kernel_plan.ShardedKernelPlan
-    query: jnp.ndarray,  # (B, N, H, D)
-    key: jnp.ndarray,  # (B, N, H, D)
-    value: jnp.ndarray,  # (B, N, H, D)
-    a_slots_sh: jnp.ndarray,  # (S, R, A+1) ones-augmented, mask-zeroed slot attrs
-    e_out_sh: jnp.ndarray,  # (S, Eo, H, D) projected outlier edge features
-    w_aug: jnp.ndarray,  # (A+1, H, D)
-    axis: str = "model",
-) -> jnp.ndarray:
-    """Per-edge attention through per-shard fused-kernel plans under halo
-    exchange — the multi-chip execution of ``graph_impl="pallas"``.
-
-    Each shard assembles its halo-extended k/v, permutes them into the plan's
-    contiguized (global-id) order — restoring the RCM slab contiguity the
-    kernel needs, with a bijective gather whose adjoint is itself a gather —
-    then runs the hand-written Pallas forward/backward kernels on its local
-    blocks and merges the out-of-plan (long-range multiscale) edges from a
-    masked COO partial. Replaces the reference's full-node all-gather + COO
-    scatter per layer (``layers/block.py:203``, ``layers/conv.py:79-142``).
-    """
-    from anemoi_models_tpu.ops.pallas.edge_attention import slot_attention_arrays_kernel
-    from anemoi_models_tpu.ops.slot_attention import (
-        dense_outlier_partials,
-        finalize_partials,
-        merge_partials,
-    )
-
-    b, n, h, d = query.shape
-    c = h * d
-    nps = part.nodes_per_shard
-    interpret = jax.default_backend() != "tpu"
-
-    from anemoi_models_tpu.ops.dense_graph import PaddedTranspose
-
-    bc = jnp.asarray(part.boundary_contrib)
-    hs = jnp.asarray(part.halo_select)
-    hm = jnp.asarray(part.halo_mask)
-    c2e = jnp.asarray(sp.cont_to_ext)
-    e2c = jnp.asarray(sp.ext_to_cont)
-    # normalize to a pass axis: multi-window chains (num_passes > 1) stack
-    # per-pass slab layouts at axis 1; single-window plans gain a K=1 axis
-    k_passes = getattr(sp, "num_passes", 1) or 1
-    widths = tuple(sp.slab_widths) if getattr(sp, "slab_widths", None) else (sp.slab_width,)
-    starts = jnp.asarray(sp.slab_start)
-    src_idx = jnp.asarray(sp.src_slab_idx)
-    slot_mask = jnp.asarray(sp.slot_mask)
-    if k_passes == 1 and starts.ndim == 2:
-        starts, src_idx, slot_mask = starts[:, None], src_idx[:, None], slot_mask[:, None]
-        if a_slots_sh.ndim == 3:
-            a_slots_sh = a_slots_sh[:, None]
-    o_src = jnp.asarray(sp.out_src)
-    o_inv = jnp.asarray(sp.out_slot_of_pos)
-    ts_tab, ts_mask = (jnp.asarray(a) for a in sp.t_out_src)
-    td_tab, td_mask = (jnp.asarray(a) for a in sp.t_out_dst)
-    tc_tab, tc_mask = (jnp.asarray(a) for a in sp.t_contrib)
-    th_tab, th_mask = (jnp.asarray(a) for a in sp.t_halo)
-
-    def flat_pad(t):
-        return pad_nodes(t.reshape(b, n, c), part)
-
-    q_pad, k_pad, v_pad = flat_pad(query), flat_pad(key), flat_pad(value)
-
-    def local(q_blk, k_blk, v_blk, bc_blk, hs_blk, hm_blk, c2e_blk, e2c_blk,
-              st_blk, si_blk, sm_blk, os_blk, oi_blk,
-              ts_t, ts_m, td_t, td_m, tc_t, tc_m, th_t, th_m,
-              a_blk, eo_blk, w):
-        from anemoi_models_tpu.ops.dense_graph import padded_take
-
-        def ext_cont(t_blk):
-            # exchange gathers via padded_take: their adjoints are masked
-            # takes over the inverse tables, keeping the whole path
-            # scatter-free under the mesh
-            contrib = jax.vmap(lambda xb: padded_take(xb, bc_blk[0], tc_t[0], tc_m[0]))(t_blk)
-            pool = jax.lax.all_gather(contrib, axis, axis=1, tiled=True)
-            halo = jax.vmap(lambda pb: padded_take(pb, hs_blk[0], th_t[0], th_m[0]))(pool)
-            halo = halo * hm_blk[0][None, :, None].astype(t_blk.dtype)
-            x_ext = jnp.concatenate([t_blk, halo], axis=1)
-            pad = sp.ext_rows - x_ext.shape[1]
-            if pad:
-                x_ext = jnp.pad(x_ext, ((0, 0), (0, pad), (0, 0)))
-            return _perm_rows(x_ext, c2e_blk[0], e2c_blk[0])
-
-        k_cont, v_cont = ext_cont(k_blk), ext_cont(v_blk)
-
-        def one(q1, k1, v1, eo1):
-            q3, k3, v3 = (
-                q1.reshape(nps, h, d), k1.reshape(-1, h, d), v1.reshape(-1, h, d)
-            )
-            p = slot_attention_arrays_kernel(
-                q3, k3, v3,
-                a_blk[0, 0], w, st_blk[0, 0], si_blk[0, 0], sm_blk[0, 0],
-                sp.block_nodes, sp.cap, widths[0], interpret,
-            )
-            for kk in range(1, k_passes):  # multi-window chain: exact merge
-                p = merge_partials(p, slot_attention_arrays_kernel(
-                    q3, k3, v3,
-                    a_blk[0, kk], w, st_blk[0, kk], si_blk[0, kk], sm_blk[0, kk],
-                    sp.block_nodes, sp.cap, widths[kk], interpret,
-                ))
-            p2 = dense_outlier_partials(
-                q1.reshape(nps, h, d), k1.reshape(-1, h, d), v1.reshape(-1, h, d),
-                eo1, os_blk[0],
-                PaddedTranspose(ts_t[0], ts_m[0]),
-                td_t[0], td_m[0], oi_blk[0],
-            )
-            return finalize_partials(merge_partials(p, p2), value.dtype).reshape(nps, c)
-
-        eo = eo_blk[0]
-        out = jnp.stack([
-            one(q_blk[i], k_cont[i], v_cont[i], eo if eo.ndim == 3 else eo[i])
-            for i in range(b)
-        ])
-        return out
-
-    shard_args = (bc, hs, hm, c2e, e2c, starts, src_idx, slot_mask, o_src,
-                  o_inv, ts_tab, ts_mask, td_tab, td_mask, tc_tab, tc_mask,
-                  th_tab, th_mask, a_slots_sh, e_out_sh)
-    run = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(
-            (P(None, axis, None),) * 3
-            # every layout/table array leads with the shard axis; trailing
-            # dims (incl. the multi-window pass axis) are replicated
-            + tuple(P(axis, *([None] * (a.ndim - 1))) for a in shard_args)
-            + (P(),)
-        ),
-        out_specs=P(None, axis, None),
-        # pallas_call carries no varying-mesh-axes metadata on its outputs
-        check_vma=False,
-    )
-    out = run(q_pad, k_pad, v_pad, *shard_args, w_aug)
     return unpad_nodes(out, part).reshape(b, n, h, d)
 
 

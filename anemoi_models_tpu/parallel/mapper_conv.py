@@ -8,7 +8,7 @@ this by sharding edges and head-all-to-all-ing Q/K/V
 that dataflow trips involuntary full rematerializations (full node-tensor
 all-gathers) on the mapper's fused-projection splits.
 
-The TPU-native answer here keeps everything destination-sharded:
+The answer here keeps everything destination-sharded:
 
 - destination rows are contiguously sharded; each shard holds a precomputed
   (dst_per_shard, cap) slot table (``graphs.partition.mapper_shard_tables``);
@@ -16,7 +16,7 @@ The TPU-native answer here keeps everything destination-sharded:
   (raw inputs ~20 wide for the encoder, C-wide hidden rows for the decoder —
   never the 2×(H·D) k/v tensors);
 - k/v are projected shard-locally on the gathered slot rows (the
-  narrow-gather trade measured in PERF.md round 2), the per-destination
+  narrow-gather trade: fewer gather bytes for more matmul FLOPs), the per-destination
   softmax completes within the shard, and every adjoint is a precomputed
   position-table take — forward and backward are scatter-free.
 """
@@ -55,7 +55,7 @@ def sharded_mapper_edge_attention(
 
     ``num_chunks`` > 1 processes destination rows in chunks (each under
     ``jax.checkpoint``): the wide (H·D) k/v/edge slot slabs — the dominant
-    live tensors at production scale, ~42 GiB/chip at O1280 C=512 — become
+    live tensors at production scale — become
     per-chunk transients, while the *narrow* gathered rows stay whole-shard
     so the scatter-free source adjoint needs no per-chunk tables. Chunking
     splits complete destination rows, so softmax semantics are unchanged.

@@ -4,7 +4,7 @@ Capability match for the reference ``preprocessing/imputer.py``: replace NaNs
 with a statistic or constant per variable, expose a ``loss_mask_training``
 zeroing the loss at imputed output locations, and re-insert NaNs on inverse.
 
-TPU-native differences:
+Differences from the reference:
 - the per-variable Python loops (``imputer.py:148-150,170-172``) become one
   gather → ``jnp.where`` → scatter over the mapped columns;
 - the first-batch NaN mask is explicit functional state set by ``fit(x)``

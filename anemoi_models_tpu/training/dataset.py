@@ -3,7 +3,7 @@
 The reference trains through the external anemoi-datasets stack (zarr
 stores of shape ``(time, vars, ensemble, grid)`` plus per-variable
 statistics); anemoi-models itself ships no reader. Here the same tensor
-contract is provided self-contained, TPU-loader-friendly:
+contract is provided self-contained and loader-friendly:
 
 - every source exposes ``window(start, length) -> (length, grid, vars)``
   float32 plus ``statistics`` / ``variables`` / ``coords`` — exactly what
@@ -26,6 +26,8 @@ import os
 from typing import Protocol, Sequence, runtime_checkable
 
 import numpy as np
+
+from anemoi_models_tpu.utils.optional import optional_import
 
 __all__ = [
     "DataSource",
@@ -144,7 +146,7 @@ class H5Dataset:
     ``statistics`` group of (vars,) arrays. Requires ``h5py``."""
 
     def __init__(self, path: str) -> None:
-        import h5py  # optional dependency, present in the target image
+        h5py = optional_import("h5py", "reading an HDF5 dataset")
 
         self._file = h5py.File(path, "r")
         self._data = self._file["data"]
@@ -182,7 +184,7 @@ class H5Dataset:
         coords: np.ndarray,
         statistics: dict | None = None,
     ) -> "H5Dataset":
-        import h5py
+        h5py = optional_import("h5py", "writing an HDF5 dataset")
 
         data = np.asarray(data, np.float32)
         if statistics is None:

@@ -1,7 +1,7 @@
 """Rollout evaluation: per-variable, per-lead-time skill scores.
 
-Infrastructure for the 72h-rollout-RMSE benchmark protocol (BASELINE.md):
-run the autoregressive rollout against held-out truth and report
+Infrastructure for a 72h-rollout-RMSE benchmark protocol: run the
+autoregressive rollout against held-out truth and report
 area-weighted RMSE (and anomaly correlation) per variable and lead time,
 plus the persistence baseline every forecast must beat.
 """

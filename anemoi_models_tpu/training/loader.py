@@ -1,6 +1,6 @@
 """Input pipeline: host-side window batching with device double-buffering.
 
-The TPU step time should never wait on the host. The pipeline here has the
+The device's step time should never wait on the host. The pipeline here has the
 three standard stages of a JAX input pipeline, each overlapped with the
 next:
 
@@ -189,7 +189,7 @@ def device_prefetch(
     ``sharding`` may be a `jax.sharding.Sharding` (e.g. batch split over the
     ``data`` mesh axis, grid over ``model``); transfers are dispatched
     asynchronously, so while the caller's train step runs on batch N, batch
-    N+1 is already crossing PCIe/ICI.
+    N+1 is already crossing PCIe.
     """
     import jax
 

@@ -6,14 +6,14 @@ function owns the whole run, built from this package's parts:
 
 - graph built from the dataset's own coordinates (``nodes_from_coords``),
   so any grid the data comes on works — no resampling step;
-- background `BatchLoader` + `device_prefetch` keep the chip fed;
+- background `BatchLoader` + `device_prefetch` keep the device fed;
 - single-step (`make_train_step`) or autoregressive rollout training
   (`make_rollout_train_step`) in one jitted program, preprocessing
   included — host work per step is one queue pop;
 - optional `jax.sharding.Mesh`: the batch is laid out over the ``data``
   axis at transfer time and every model-internal sharding constraint
   (grid over ``model``) applies as in serving;
-- AdamW + warmup/cosine, parameter EMA, orbax checkpointing with full
+- AdamW + warmup/cosine, parameter EMA, checkpointing with full
   resume (optimizer state, EMA, sampler position), periodic rollout
   evaluation scored against persistence.
 """
@@ -144,14 +144,13 @@ def train_run(
 
     With ``handle_signals`` (default, main thread only) SIGTERM/SIGINT
     request a graceful stop: the loop finishes the in-flight update,
-    checkpoints, and returns — on preemptible TPU pods the eviction notice
+    checkpoints, and returns — on preemptible machines the eviction notice
     becomes a clean resume point. ``profile_dir`` captures an xplane trace
     of steps ``profile_steps=[start, stop)``.
 
     ``steps_per_call`` > 1 batches that many optimizer steps into one
     compiled program (their input batches staged together), amortizing the
-    per-dispatch host/runtime overhead — the measured bottleneck on
-    dispatch-expensive runtimes (PERF.md "training pipeline on-chip").
+    per-dispatch host/runtime overhead on dispatch-expensive runtimes.
     Numerics are identical to step-at-a-time; per-step losses still log.
     Eval/save/profile points force a call boundary, so their cadence is
     exact; interrupts land on the next boundary (≤ ``steps_per_call`` steps
@@ -176,8 +175,8 @@ def train_run(
 
     model_kwargs = dict(model_kwargs or {})
     # remat_policy="auto": build with "none" first; after shapes are known
-    # the compiled memory analysis decides whether to keep it (PERF.md
-    # round 4: "none" is +15% train throughput when activations fit)
+    # the compiled memory analysis decides whether to keep it ("none"
+    # skips the backward recompute when the activations fit)
     auto_remat = model_kwargs.get("remat_policy") == "auto" and config is None
     if model_kwargs.get("remat_policy") == "auto":
         model_kwargs["remat_policy"] = "none" if auto_remat else "full"

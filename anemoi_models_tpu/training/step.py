@@ -151,9 +151,8 @@ def resolve_remat_policy(
 ) -> str:
     """Pick "none" vs "full" from the COMPILER's memory analysis.
 
-    Post-commute measurement (PERF.md round 4): skipping rematerialization
-    entirely is +15% train throughput at O96 — when the activations fit.
-    This resolves ``remat_policy="auto"``: AOT-compile one train step of
+    Skipping rematerialization entirely saves the backward's recompute —
+    when the activations fit. This resolves ``remat_policy="auto"``: AOT-compile one train step of
     ``model`` (which must be built with ``remat_policy="none"``), read the
     compiled per-device peak, and keep "none" if it stays under
     ``headroom`` × the device's memory budget; otherwise fall back to the
@@ -172,8 +171,8 @@ def resolve_remat_policy(
     (small) extra batch queue.
 
     ``limit_bytes=None`` reads ``memory_stats()['bytes_limit']`` from the
-    first local device; when the backend reports no budget (CPU), the safe
-    "full" is returned.
+    first local device (a GPU reports it); when the backend reports no
+    budget (CPU), the safe "full" is returned.
     """
     say = log or (lambda s: None)
     dev = jax.local_devices()[0]
@@ -181,16 +180,6 @@ def resolve_remat_policy(
         stats_fn = getattr(dev, "memory_stats", None)
         stats = stats_fn() if stats_fn else None
         limit_bytes = (stats or {}).get("bytes_limit")
-    if not limit_bytes:
-        # some runtimes (tunneled dev chips) report no budget: fall back to
-        # the device generation's HBM capacity
-        kind = getattr(dev, "device_kind", "").lower()
-        hbm_gb = {"v5 lite": 16, "v5e": 16, "v5p": 95, "v5": 95, "v4": 32, "v6": 32}
-        for key, gb in hbm_gb.items():
-            if key in kind:
-                limit_bytes = gb * 2**30
-                say(f"remat auto: no reported budget; assuming {gb} GB for {kind!r}")
-                break
     if not limit_bytes:
         say("remat auto: unknown device memory budget; using 'full'")
         return "full"

@@ -30,6 +30,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from anemoi_models_tpu.utils.optional import optional_import
+
 __all__ = ["ZarrArray", "ZarrGroup", "write_zarr_array", "write_zarr_group_attrs"]
 
 
@@ -54,7 +56,7 @@ def _decompress(blob: bytes, compressor: Optional[dict]) -> bytes:
 
         return lzma.decompress(blob)
     if cid == "zstd":
-        import zstandard
+        zstandard = optional_import("zstandard", "zstd-compressed zarr chunks")
 
         return zstandard.ZstdDecompressor().decompress(blob)
     if cid == "blosc":
@@ -206,7 +208,7 @@ def _codec_decompress(codec: str, payload: bytes, out_len: int) -> bytes:
 
         return zlib.decompress(payload)
     if codec == "zstd":
-        import zstandard
+        zstandard = optional_import("zstandard", "zstd-compressed zarr chunks")
 
         return zstandard.ZstdDecompressor().decompress(payload, max_output_size=out_len)
     if codec == "snappy":
@@ -416,7 +418,7 @@ def _blosc_compress(
 
             comp = zlib.compress(block, level)
         elif cname == "zstd":
-            import zstandard
+            zstandard = optional_import("zstandard", "zstd-compressed zarr chunks")
 
             comp = zstandard.ZstdCompressor(level=level).compress(block)
         elif cname == "blosclz":
@@ -452,7 +454,7 @@ def _compress(raw: bytes, compressor: Optional[dict]) -> bytes:
 
         return zlib.compress(raw, level)
     if cid == "zstd":
-        import zstandard
+        zstandard = optional_import("zstandard", "zstd-compressed zarr chunks")
 
         return zstandard.ZstdCompressor(level=level).compress(raw)
     if cid == "blosc":

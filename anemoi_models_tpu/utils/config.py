@@ -1,6 +1,6 @@
 """Configuration utilities: DotDict + registry-based instantiate.
 
-TPU-native replacement for the reference's OmegaConf/DotDict + hydra
+Replacement for the reference's OmegaConf/DotDict + hydra
 ``instantiate`` combination (see reference ``interface/__init__.py:76-92`` and
 ``models/encoder_processor_decoder.py:69-106``). We keep the same config
 surface — nested dicts with ``_target_`` entries naming the class to build —

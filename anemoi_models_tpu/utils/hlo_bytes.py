@@ -2,16 +2,18 @@
 
 ``cost_analysis()['bytes accessed']`` counts every HLO op's operands and
 results BEFORE fusion — elementwise intermediates that fusion never
-materializes are charged anyway, which is how round-4's bench reported a
-physically meaningless 173% of roofline (VERDICT round 4). The defensible
+materializes are charged anyway, which can put a measured time above
+100% of roofline. The defensible
 estimate reads the *optimized* module: after fusion, each top-level
 instruction of the entry computation reads its operands from HBM and writes
-its result once — for tensors far larger than VMEM (this model's node/slot
-tensors are tens of MB against ~100 KB of vector memory) that IS the
-executed traffic schedule.
+its result once — for tensors far larger than on-chip memory (this
+model's node/slot tensors are tens of MB) that IS the executed traffic
+schedule. The parser was written for another backend's scheduled HLO and
+has not been validated against GPU HLO (custom calls to cuBLAS/cuDNN,
+Triton fusions), so on the GPU its count is a rough placement only.
 
-Two refinements keep the estimate on the right side of physics (round 5 —
-the first post-fusion model put the O96 *train* step at 116% of roofline):
+Two refinements keep the estimate on the right side of physics (a plain
+post-fusion count put a train step above 100% of roofline):
 
 - **windowed ops** (gather / dynamic-slice / slice) read only a
   result-sized window of their first operand, so they are charged
@@ -78,7 +80,7 @@ def _parse_line(line: str):
     """Parse "[ROOT] %name = <shape> opcode(operands...), tail" into
     ``(name, result_bytes, opcode, operands, tail)`` or None.
 
-    Hand-parsed: TPU-scheduled modules annotate shapes with layout/tiling
+    Hand-parsed: scheduled modules may annotate shapes with layout/tiling
     text (e.g. ``bf16[1024,1024]{1,0:T(8,128)(2,1)S(1)}``) that a
     shape-charset regex cannot anticipate. The shape token is either a
     parenthesized tuple or a single space-free token; the opcode is the

@@ -7,7 +7,7 @@ The answer decides the program-size lever for the O1280 compile: top-level
 consts can be hoisted to arguments mechanically; embedded consts need the
 table plumbing changed.
 
-Run: env PYTHONPATH= JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+Run: env JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
      python examples/const_diag.py
 """
 

@@ -1,12 +1,12 @@
-"""On-chip cost of the ensemble (CRPS) train step — the AIFS-CRPS recipe.
+"""GPU cost of the ensemble (CRPS) train step — the AIFS-CRPS recipe.
 
 Runs ``train_run(loss="crps", ensemble=M)`` at the flagship O96 scale
 (GraphTransformer, C=256, L=8, bf16 compute) through the full pipeline and
 reports steady-state steps/s, so the CRPS fine-tuning recipe
-(examples/ensemble_study.py, PERF.md round 2) has a hardware cost per step
+(examples/ensemble_study.py) has a hardware cost per step
 rather than only a CPU toy-scale study.
 
-Run (TPU):  python examples/ensemble_onchip.py
+Run on the GPU:  python examples/ensemble_onchip.py
 Env: MEMBERS (4), STEPS (12), STEPS_PER_CALL (1), GRID_LAT (96),
 CHANNELS (256), LAYERS (8).
 """

@@ -1,8 +1,8 @@
 """Fidelity study: do the three processor flavors reach the same skill?
 
 The TransformerProcessor (windowed attention over the RCM-ordered hidden
-mesh) measured fastest of everything on-chip (PERF.md), but speed only
-matters if its forecasts are as good. This study trains all three flavors
+mesh) is the cheapest processor per layer, but speed only matters if its
+forecasts are as good. This study trains all three flavors
 with identical data, budget, and optimizer, then scores a held-out
 autoregressive rollout against persistence.
 

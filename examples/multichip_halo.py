@@ -3,9 +3,7 @@
 Runs the full enc-proc-dec model over a (data, model) device mesh. Under the
 model axis the processor executes via 1-hop halo exchange — O(boundary)
 communication per layer instead of the reference's full-node all-gather
-(``/root/reference/src/anemoi/models/layers/block.py:203``) — and, with
-``graph_impl="pallas"``, through the fused per-shard Pallas kernels
-(interpret mode off-TPU).
+(reference ``layers/block.py:203``).
 
 Try it on CPU with emulated devices:
 
@@ -60,7 +58,7 @@ def main() -> None:
                 "processor": {
                     "_target_": "anemoi.models.layers.processor.GraphTransformerProcessor",
                     "num_layers": 2, "num_chunks": 1, "num_heads": 4,
-                    "trainable_size": 2, "graph_impl": "pallas",
+                    "trainable_size": 2,
                     "sub_graph_edge_attributes": ["edge_length", "edge_dirs"],
                 },
                 "decoder": {

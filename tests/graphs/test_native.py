@@ -89,44 +89,6 @@ def test_graph_build_uses_native_consistently():
         assert es.dst_ptr[-1] == es.num_edges
 
 
-def test_kernel_plan_native_matches_numpy(monkeypatch):
-    """The C++ kernel-plan core is a bit-exact twin of the numpy builder:
-    identical slot layout AND identical outlier ordering."""
-    from anemoi_models_tpu import native
-    from anemoi_models_tpu.graphs import build_enc_proc_dec_graph
-    from anemoi_models_tpu.graphs import kernel_plan as kp
-
-    if not native.available():
-        import pytest
-
-        pytest.skip("native toolchain unavailable")
-
-    g = build_enc_proc_dec_graph(grid_lat=8, mesh_refinements=3)
-    cases = [
-        (g[("hidden", "to", "hidden")], g["hidden"].num_nodes, g["hidden"].num_nodes),
-        (g[("data", "to", "hidden")], g["hidden"].num_nodes, g["data"].num_nodes),
-        (g[("hidden", "to", "data")], g["data"].num_nodes, g["hidden"].num_nodes),
-    ]
-    for es, nd, ns in cases:
-        for nb, cap, slab in ((128, 8, 256), (64, 8, 128), (128, 16, 512)):
-            a = kp.build_edge_kernel_plan(
-                np.asarray(es.edge_index), nd, ns,
-                block_nodes=nb, cap=cap, slab_width=slab,
-            )
-            with monkeypatch.context() as m:
-                m.setattr(native, "kernel_plan_slots", lambda *args, **kw: None)
-                b = kp.build_edge_kernel_plan(
-                    np.asarray(es.edge_index), nd, ns,
-                    block_nodes=nb, cap=cap, slab_width=slab,
-                )
-            np.testing.assert_array_equal(a.slab_start, b.slab_start)
-            np.testing.assert_array_equal(a.src_slab_idx, b.src_slab_idx)
-            np.testing.assert_array_equal(a.slot_mask, b.slot_mask)
-            np.testing.assert_array_equal(a.edge_ids, b.edge_ids)
-            np.testing.assert_array_equal(a.outlier_src, b.outlier_src)
-            np.testing.assert_array_equal(a.outlier_dst, b.outlier_dst)
-            np.testing.assert_array_equal(a.outlier_edge_ids, b.outlier_edge_ids)
-
 
 def test_sort_positions_by_row_matches_numpy():
     rng = np.random.RandomState(3)

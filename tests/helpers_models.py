@@ -95,3 +95,25 @@ def small_graph_cached():
     if "g" not in _GRAPH_CACHE:
         _GRAPH_CACHE["g"] = build_enc_proc_dec_graph(grid_lat=6, mesh_refinements=1)
     return _GRAPH_CACHE["g"]
+
+
+def flatten_dict(tree: dict, prefix: tuple = ()) -> dict:
+    """Nested parameter dict -> {path tuple: leaf}."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(flatten_dict(v, prefix + (k,)))
+        else:
+            flat[prefix + (k,)] = v
+    return flat
+
+
+def unflatten_dict(flat: dict) -> dict:
+    """Inverse of :func:`flatten_dict`."""
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree

@@ -10,7 +10,6 @@ grads, with identical parameter trees (the fused kernels are probed, not
 split), and keep the compiled backward scatter-free.
 """
 
-import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +21,7 @@ from anemoi_models_tpu.layers.mapper import (
     GraphTransformerForwardMapper,
 )
 from anemoi_models_tpu.layers.processor import GraphTransformerProcessor
+from helpers_models import flatten_dict, unflatten_dict
 
 
 @pytest.fixture(scope="module")
@@ -31,12 +31,12 @@ def graph():
 
 def _wide_to_narrow(pw):
     """emb_nodes_src moves into the block scope under narrow/commute."""
-    flat = flax.traverse_util.flatten_dict(pw["params"])
+    flat = flatten_dict(pw["params"])
     remap = {
         (("proc", "emb_nodes_src") + k[1:] if k[0] == "emb_nodes_src" else k): v
         for k, v in flat.items()
     }
-    return {"params": flax.traverse_util.unflatten_dict(remap)}
+    return {"params": unflatten_dict(remap)}
 
 
 def test_forward_mapper_commute_matches_wide(graph):
@@ -57,8 +57,8 @@ def test_forward_mapper_commute_matches_wide(graph):
     def loss(m, p):
         return (m.apply(p, (x_src, x_dst))[1] ** 2).sum()
 
-    gw = flax.traverse_util.flatten_dict(jax.grad(lambda p: loss(wide, p))(pw)["params"])
-    gc = flax.traverse_util.flatten_dict(jax.grad(lambda p: loss(comm, p))(pc)["params"])
+    gw = flatten_dict(jax.grad(lambda p: loss(wide, p))(pw)["params"])
+    gc = flatten_dict(jax.grad(lambda p: loss(comm, p))(pc)["params"])
     for k, v in gc.items():
         wk = ("emb_nodes_src",) + k[2:] if k[:2] == ("proc", "emb_nodes_src") else k
         np.testing.assert_allclose(np.asarray(v), np.asarray(gw[wk]), rtol=5e-4, atol=5e-4)
@@ -84,8 +84,8 @@ def test_backward_mapper_commute_matches_wide(graph):
     def loss(m, pp):
         return (m.apply(pp, (x_src, x_dst)) ** 2).sum()
 
-    gw = flax.traverse_util.flatten_dict(jax.grad(lambda pp: loss(wide, pp))(p)["params"])
-    gc = flax.traverse_util.flatten_dict(jax.grad(lambda pp: loss(comm, pp))(p)["params"])
+    gw = flatten_dict(jax.grad(lambda pp: loss(wide, pp))(p)["params"])
+    gc = flatten_dict(jax.grad(lambda pp: loss(comm, pp))(p)["params"])
     for k, v in gc.items():
         np.testing.assert_allclose(np.asarray(v), np.asarray(gw[k]), rtol=5e-4, atol=5e-4)
 
@@ -109,8 +109,8 @@ def test_processor_commute_matches_wide(graph):
     def loss(m, pp):
         return (m.apply(pp, x) ** 2).sum()
 
-    gw = flax.traverse_util.flatten_dict(jax.grad(lambda pp: loss(wide, pp))(p)["params"])
-    gc = flax.traverse_util.flatten_dict(jax.grad(lambda pp: loss(comm, pp))(p)["params"])
+    gw = flatten_dict(jax.grad(lambda pp: loss(wide, pp))(p)["params"])
+    gc = flatten_dict(jax.grad(lambda pp: loss(comm, pp))(p)["params"])
     for k, v in gc.items():
         np.testing.assert_allclose(
             np.asarray(v), np.asarray(gw[k]), rtol=1e-3, atol=5e-4, err_msg=str(k)

@@ -6,7 +6,6 @@ forward and to fp32 tolerance in grads, while keeping the compiled backward
 scatter-free (the gather adjoint rides the build-time transpose tables).
 """
 
-import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +16,7 @@ from anemoi_models_tpu.layers.mapper import (
     GraphTransformerBackwardMapper,
     GraphTransformerForwardMapper,
 )
+from helpers_models import flatten_dict, unflatten_dict
 
 
 @pytest.fixture(scope="module")
@@ -27,12 +27,12 @@ def graph():
 def _wide_to_narrow(pw):
     """Map the wide param tree onto the narrow layout (emb_nodes_src moves
     into the block scope)."""
-    flat = flax.traverse_util.flatten_dict(pw["params"])
+    flat = flatten_dict(pw["params"])
     remap = {
         (("proc", "emb_nodes_src") + k[1:] if k[0] == "emb_nodes_src" else k): v
         for k, v in flat.items()
     }
-    return {"params": flax.traverse_util.unflatten_dict(remap)}
+    return {"params": unflatten_dict(remap)}
 
 
 def test_forward_mapper_narrow_matches_wide(graph):
@@ -53,8 +53,8 @@ def test_forward_mapper_narrow_matches_wide(graph):
     def loss(m, p):
         return (m.apply(p, (x_src, x_dst))[1] ** 2).sum()
 
-    gw = flax.traverse_util.flatten_dict(jax.grad(lambda p: loss(wide, p))(pw)["params"])
-    gn = flax.traverse_util.flatten_dict(jax.grad(lambda p: loss(narrow, p))(pn)["params"])
+    gw = flatten_dict(jax.grad(lambda p: loss(wide, p))(pw)["params"])
+    gn = flatten_dict(jax.grad(lambda p: loss(narrow, p))(pn)["params"])
     for k, v in gn.items():
         wk = ("emb_nodes_src",) + k[2:] if k[:2] == ("proc", "emb_nodes_src") else k
         np.testing.assert_allclose(np.asarray(v), np.asarray(gw[wk]), rtol=5e-4, atol=5e-5)

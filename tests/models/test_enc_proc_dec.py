@@ -249,75 +249,3 @@ def test_interface_predict_rollout(small_graph):
     # post-processed output at model-output width per lead time
     assert preds.shape == (n_steps, 1, 1, n_grid, 4)
     assert jnp.isfinite(preds).all()
-
-
-def test_graphtransformer_pallas_plan_matches_dense(small_graph):
-    """graph_impl='pallas' (slot plan + outlier merge; jnp twin on CPU)
-    reproduces the bucketed dense path at model level."""
-    cfg = make_config("graphtransformer")
-    di = IndexCollection(cfg, dict(VARS))
-    model_dense = AnemoiModelEncProcDec(model_config=cfg, data_indices=di, graph_data=small_graph)
-    cfg2 = make_config("graphtransformer")
-    cfg2.model.processor.graph_impl = "pallas"
-    di2 = IndexCollection(cfg2, dict(VARS))
-    model_plan = AnemoiModelEncProcDec(model_config=cfg2, data_indices=di2, graph_data=small_graph)
-
-    n_grid = small_graph["data"].num_nodes
-    x = jnp.asarray(np.random.RandomState(0).randn(1, 2, 1, n_grid, 4), jnp.float32)
-    params = model_dense.init(jax.random.key(0), x)
-    ref = model_dense.apply(params, x)
-    out = model_plan.apply(params, x)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=5e-5, rtol=5e-4)
-
-
-def test_gnn_pallas_plan_matches_dense(small_graph):
-    """GNN flavor graph_impl='pallas' (slot layout + outlier sum; jnp twin on
-    CPU) reproduces the bucketed dense path, forward and gradients."""
-    cfg = make_config("gnn")
-    di = IndexCollection(cfg, dict(VARS))
-    model_dense = AnemoiModelEncProcDec(model_config=cfg, data_indices=di, graph_data=small_graph)
-    cfg2 = make_config("gnn")
-    cfg2.model.processor.graph_impl = "pallas"
-    model_plan = AnemoiModelEncProcDec(
-        model_config=cfg2, data_indices=IndexCollection(cfg2, dict(VARS)), graph_data=small_graph
-    )
-
-    n_grid = small_graph["data"].num_nodes
-    x = jnp.asarray(np.random.RandomState(0).randn(1, 2, 1, n_grid, 4), jnp.float32)
-    params = model_dense.init(jax.random.key(0), x)
-    ref = model_dense.apply(params, x)
-    out = model_plan.apply(params, x)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=5e-5, rtol=5e-4)
-
-    g_ref = jax.grad(lambda p: jnp.mean(model_dense.apply(p, x) ** 2))(params)
-    g_out = jax.grad(lambda p: jnp.mean(model_plan.apply(p, x) ** 2))(params)
-    for (kp, a), (_, b) in zip(
-        jax.tree_util.tree_leaves_with_path(g_ref), jax.tree_util.tree_leaves_with_path(g_out)
-    ):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), atol=1e-5, rtol=1e-3, err_msg=str(kp)
-        )
-
-
-def test_decoder_pallas_plan_mesh_ordered_data():
-    """With data_order='mesh' the decoder conv qualifies for the slot kernel
-    (100% coverage at O96 scale); plan path matches dense at model level."""
-    from anemoi_models_tpu.graphs import build_enc_proc_dec_graph
-
-    g = build_enc_proc_dec_graph(grid_lat=6, mesh_refinements=2, data_order="mesh")
-    assert "source_index" in g["data"].attrs
-    cfg = make_config("graphtransformer")
-    di = IndexCollection(cfg, dict(VARS))
-    model_dense = AnemoiModelEncProcDec(model_config=cfg, data_indices=di, graph_data=g)
-    cfg2 = make_config("graphtransformer")
-    cfg2.model.decoder.graph_impl = "pallas"
-    cfg2.model.processor.graph_impl = "pallas"
-    model_plan = AnemoiModelEncProcDec(
-        model_config=cfg2, data_indices=IndexCollection(cfg2, dict(VARS)), graph_data=g
-    )
-    n_grid = g["data"].num_nodes
-    x = jnp.asarray(np.random.RandomState(0).randn(1, 2, 1, n_grid, 4), jnp.float32)
-    params = model_dense.init(jax.random.key(0), x)
-    ref = model_dense.apply(params, x)
-    out = model_plan.apply(params, x)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=5e-5, rtol=5e-4)

@@ -53,27 +53,3 @@ def test_hierarchical_grads(hier_graph):
     grads = jax.grad(lambda p: jnp.mean(model.apply(p, x) ** 2))(params)
     for kp, g in jax.tree_util.tree_leaves_with_path(grads):
         assert jnp.isfinite(g).all(), f"non-finite grad at {kp}"
-
-
-def test_hierarchical_pallas_plan_matches_dense(hier_graph):
-    """Per-level processors through the slot kernel plan match the dense path."""
-    import jax
-
-    graph, hidden_names = hier_graph
-    cfg = make_hier_config(hidden_names)
-    di = IndexCollection(cfg, dict(VARS))
-    model_dense = AnemoiModelEncProcDecHierarchical(
-        model_config=cfg, data_indices=di, graph_data=graph
-    )
-    cfg2 = make_hier_config(hidden_names)
-    cfg2.model.processor.graph_impl = "pallas"
-    model_plan = AnemoiModelEncProcDecHierarchical(
-        model_config=cfg2, data_indices=IndexCollection(cfg2, dict(VARS)), graph_data=graph
-    )
-    n_grid = graph["data"].num_nodes
-    n_in = len(di.internal_model.input)
-    x = jnp.asarray(np.random.RandomState(0).randn(1, 2, 1, n_grid, n_in), jnp.float32)
-    params = model_dense.init(jax.random.key(0), x)
-    ref = model_dense.apply(params, x)
-    out = model_plan.apply(params, x)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=5e-5, rtol=5e-4)

@@ -28,7 +28,7 @@ def build(small_graph, dtype, graph_impl=None):
     return di, model
 
 
-@pytest.mark.parametrize("graph_impl", [None, "pallas"])
+@pytest.mark.parametrize("graph_impl", [None, "segment"])
 def test_bf16_rollout_tracks_fp32(small_graph, graph_impl):
     di32, m32 = build(small_graph, "float32")
     _, m16 = build(small_graph, "bfloat16", graph_impl=graph_impl)

@@ -6,8 +6,7 @@ the reference equations (``models/encoder_processor_decoder.py:168-233``,
 float64, consuming the *flax parameter tree* directly. This pins the whole
 model (node attributes, mappers, processor, residual routing) to the
 reference math, not just individual convs, and measures the multi-step
-rollout RMSE drift of the fp32 model against the fp64 oracle (the
-BASELINE.md rollout-delta target).
+rollout RMSE drift of the fp32 model against the fp64 oracle.
 """
 
 import jax
@@ -195,7 +194,7 @@ def test_full_forward_matches_torch_oracle(setup):
 
 def test_rollout_rmse_drift_vs_oracle(setup):
     """Autoregressive rollout: fp32 model vs fp64 oracle, RMSE per step
-    (the BASELINE.md '72h rollout RMSE delta' harness at test scale)."""
+    (a '72h rollout RMSE delta' harness at test scale)."""
     graph, cfg, di, model, x, params = setup
     n_steps = 4
     prog_in = np.asarray(di.internal_model.input.prognostic)

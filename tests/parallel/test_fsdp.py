@@ -2,7 +2,7 @@
 
 The reference replicates weights and Adam moments on every rank (SURVEY
 §2.2 TP row: "every rank holds full weights"); these tests pin the
-TPU-native alternative: sharded state trains to the same losses as the
+sharded alternative: sharded state trains to the same losses as the
 replicated baseline on an emulated mesh, and the state leaves really are
 distributed (their shardings name a mesh axis).
 """
@@ -124,7 +124,7 @@ def test_zero1_composes_with_model_axis_and_ema(source, monkeypatch):
 
 
 def test_fsdp_checkpoint_roundtrip(source, tmp_path, monkeypatch):
-    """Sharded state saves and resumes exactly (orbax gathers on save; the
+    """Sharded state saves and resumes exactly (the save gathers to the host; the
     resumed state is re-placed onto the mesh after restore)."""
     import anemoi_models_tpu.parallel.fsdp as fsdp
 

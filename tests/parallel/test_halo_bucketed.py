@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from anemoi_models_tpu.graphs.kernel_plan import (
+from anemoi_models_tpu.graphs.partition import (
     HaloBucketedTables,
     build_halo_bucketed_tables,
+    partition_1hop,
 )
-from anemoi_models_tpu.graphs.partition import partition_1hop
 from anemoi_models_tpu.ops.segment import segment_sum
 from anemoi_models_tpu.parallel import make_mesh
 from anemoi_models_tpu.parallel.halo_conv import (

@@ -9,7 +9,6 @@ full rematerializations on the mapper dataflow (reference model sharding:
 
 import re
 
-import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +20,7 @@ from anemoi_models_tpu.layers.mapper import (
     GraphTransformerForwardMapper,
 )
 from anemoi_models_tpu.parallel import make_mesh, use_mesh
+from helpers_models import flatten_dict, unflatten_dict
 
 
 @pytest.fixture(scope="module")
@@ -81,10 +81,10 @@ def test_forward_mapper_sharded_grads_match(graph):
     def loss(p):
         return (mapper.apply(p, x)[1] ** 2).sum()
 
-    g_ref = flax.traverse_util.flatten_dict(jax.grad(loss)(params)["params"])
+    g_ref = flatten_dict(jax.grad(loss)(params)["params"])
     mesh = make_mesh(data=1, model=8)
     with use_mesh(mesh):
-        g_sh = flax.traverse_util.flatten_dict(jax.jit(jax.grad(loss))(params)["params"])
+        g_sh = flatten_dict(jax.jit(jax.grad(loss))(params)["params"])
     assert set(g_ref) == set(g_sh)
     for k in g_ref:
         np.testing.assert_allclose(

@@ -27,13 +27,6 @@ def test_cli_info():
     assert "jax" in out.lower()
 
 
-def test_cli_plan_with_shards():
-    out = _run_cli(
-        "plan", "--grid-lat", "6", "--refinements", "2", "--shards", "4"
-    )
-    assert "hidden->hidden" in out and "halo x4" in out and "coverage=" in out
-
-
 def test_step_timer_and_annotate():
     from anemoi_models_tpu.utils.profiling import StepTimer, annotate
 

@@ -64,7 +64,7 @@ def test_hierarchical_preset_builds_and_runs():
 def test_preset_with_bounding_and_kernel_impl():
     cfg = configs.enc_proc_dec(
         forcing=["lsm"], diagnostic=["tp"], num_channels=16, num_layers=2,
-        num_chunks=1, num_heads=4, graph_impl="pallas", compute_dtype="float32",
+        num_chunks=1, num_heads=4, graph_impl="segment", compute_dtype="float32",
         bounding=[{
             "_target_": "anemoi.models.layers.bounding.ReluBounding",
             "variables": ["tp"],

@@ -1,5 +1,5 @@
 """utils/hlo_bytes: post-fusion HBM traffic accounting (the bench roofline
-denominator — replaces cost_analysis()'s pre-fusion overcount, VERDICT r4)."""
+denominator — replaces cost_analysis()'s pre-fusion overcount)."""
 
 import jax
 import jax.numpy as jnp
@@ -39,8 +39,8 @@ def test_malformed_text_rejected():
         hbm_bytes("HloModule nothing_here")
 
 
-def test_tpu_layout_annotations_parse():
-    # TPU-scheduled modules carry tiling/memory-space suffixes inside the
+def test_layout_annotations_parse():
+    # scheduled modules can carry tiling/memory-space suffixes inside the
     # layout braces (``{1,0:T(8,128)(2,1)S(1)}``); the round-4 regex parser
     # silently returned 0 on them and the bench lost its roofline
     text = """HloModule m, is_scheduled=true

@@ -26,9 +26,9 @@ def test_dotdict_to_dict_roundtrip():
 
 
 def test_as_dotdict_from_frozen():
-    from flax.core import freeze
+    from types import MappingProxyType
 
-    fd = freeze({"a": {"b": 3}})
+    fd = MappingProxyType({"a": MappingProxyType({"b": 3})})
     d = as_dotdict(fd)
     assert d.a.b == 3
 
@@ -62,3 +62,17 @@ def test_step_timer():
 def test_annotate_context():
     with annotate("region"):
         pass
+
+
+@pytest.mark.parametrize("name", ["no_such_package_xyz", "no_such_package_xyz.sub"])
+def test_optional_import_names_what_needs_it(name):
+    from anemoi_models_tpu.utils.optional import optional_import
+
+    with pytest.raises(ImportError, match="zstd-compressed zarr chunks needs the optional package"):
+        optional_import(name, "zstd-compressed zarr chunks")
+
+
+def test_optional_import_returns_module():
+    from anemoi_models_tpu.utils.optional import optional_import
+
+    assert optional_import("json", "anything").dumps([1]) == "[1]"

@@ -38,6 +38,31 @@ def test_checkpoint_roundtrip(tmp_path):
     )
 
 
+def test_checkpoint_bit_exact_dtypes(tmp_path):
+    """Every leaf comes back with its dtype and bits, bfloat16 included, and
+    a target restore keeps the target's tree structure (namedtuples too)."""
+    import optax
+
+    tree = {
+        "w": jnp.asarray(np.random.RandomState(0).randn(3, 4), jnp.bfloat16),
+        "b": jnp.arange(5, dtype=jnp.int32),
+        "m": jnp.asarray([True, False]),
+        "f": jnp.asarray(np.random.RandomState(1).randn(7), jnp.float32),
+    }
+    opt_state = optax.adam(1e-3).init(tree["f"])
+    path = save_checkpoint(str(tmp_path / "c"), params=tree, opt_state=opt_state, step=1)
+    raw = load_checkpoint(path)
+    for k, v in tree.items():
+        assert raw["params"][k].dtype == v.dtype
+        np.testing.assert_array_equal(np.asarray(raw["params"][k]), np.asarray(v))
+    got = load_checkpoint(path, target={"params": tree, "opt_state": opt_state})
+    assert jax.tree_util.tree_structure(got["opt_state"]) == jax.tree_util.tree_structure(opt_state)
+    for a, b in zip(jax.tree_util.tree_leaves((got["params"], got["opt_state"])),
+                    jax.tree_util.tree_leaves((tree, opt_state))):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 def test_cli_hello(capsys):
     from anemoi_models_tpu.commands import main
 

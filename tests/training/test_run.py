@@ -222,12 +222,12 @@ def test_predict_cli(source, tmp_path, capsys):
 
 
 def test_train_run_hybrid_mesh_and_metrics(source, tmp_path):
-    """Hybrid (DCN x ICI) mesh layout trains; metrics.jsonl records steps."""
+    """Hybrid (hosts x devices per host) mesh layout trains; metrics.jsonl records steps."""
     import json
 
     from anemoi_models_tpu.parallel import make_hybrid_mesh
 
-    mesh = make_hybrid_mesh(dcn_data=2, ici_data=2, model=2)
+    mesh = make_hybrid_mesh(hosts=2, data_per_host=2, model=2)
     assert mesh.shape == {"data": 4, "model": 2}
     result = train_run(
         source,
@@ -583,7 +583,7 @@ def test_train_run_auto_remat_rollout_ensemble(tmp_path):
 
 def test_train_run_overlap_matches_serial(source):
     """overlap_calls defers loss fetches to overlap loader staging with
-    device execution (PERF round 5: +87% pipeline throughput on-chip); the
+    device execution; the
     dispatched programs and their order are identical, so losses must match
     the serial mode exactly — including across an eval boundary, where the
     overlap path must flush pending fetches before using the state."""
